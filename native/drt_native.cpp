@@ -1,4 +1,4 @@
-// Native runtime components for distributed_raytracer_tpu.
+// Native runtime components for distributed_raytracer.
 //
 // The reference's "native" layer is its Go runtime (OBJ parsing via gwob,
 // R-tree builds via rtreego — SURVEY.md §2 C5/C22). Here the host-side

@@ -42,17 +42,17 @@ def main() -> int:
 
     import numpy as np
 
-    from distributed_raytracer_tpu.parallel import multihost
+    from distributed_raytracer.parallel import multihost
     assert jax.process_count() == int(nproc), jax.process_count()
     assert len(jax.devices()) == 2 * int(nproc), len(jax.devices())
 
-    from distributed_raytracer_tpu.models.scene import load_scene
+    from distributed_raytracer.models.scene import load_scene
 
     scene = load_scene(scene_path)
     w, h = 48, 36
 
     if mode == "dense":
-        from distributed_raytracer_tpu.parallel import render_sharded
+        from distributed_raytracer.parallel import render_sharded
 
         arrays = scene.bake()
         mesh = multihost.global_mesh("tiles")
@@ -62,7 +62,7 @@ def main() -> int:
         frame = (frame[:w * h].reshape(h, w, 3)
                  if frame is not None else None)
     elif mode in ("sharded-bvh", "sharded-bvh-balanced"):
-        from distributed_raytracer_tpu.parallel import render_sharded_bvh
+        from distributed_raytracer.parallel import render_sharded_bvh
 
         mesh = multihost.global_mesh(render_sharded_bvh.AXIS)
         # The band renderer's inputs are uncommitted local arrays; the
@@ -70,7 +70,7 @@ def main() -> int:
         # analog of the registrar shipping the full scene to every worker
         # (registrar.go:41-47). This is exactly run.py's --multihost path.
         r = render_sharded_bvh.make_sharded_culled_renderer(
-            scene, w, h, mesh=mesh, interpret=True,
+            scene, w, h, mesh=mesh,
             balance=mode.endswith("balanced"))
         band = r.band
         out, _ = r.device_fn(scene.camera.to_arrays())
@@ -87,29 +87,27 @@ def main() -> int:
         else:
             frame = full[:h]
     elif mode == "sharded-bvh-bounced":
-        from distributed_raytracer_tpu.parallel import render_sharded_bvh
+        from distributed_raytracer.parallel import render_sharded_bvh
 
         mesh = multihost.global_mesh(render_sharded_bvh.AXIS)
         r = render_sharded_bvh.make_sharded_bounced_renderer(
-            scene, w, h, 1, mesh=mesh, interpret=True)
+            scene, w, h, 1, mesh=mesh)
         out, _ = r.device_fn(scene.camera.to_arrays())
         full = multihost.gather_frame(out)
         frame = full[:h] if full is not None else None
     elif mode == "halo":
-        from distributed_raytracer_tpu.parallel import halo_bvh
+        from distributed_raytracer.parallel import halo_bvh
 
         mesh = multihost.global_mesh(halo_bvh.AXIS)
-        r = halo_bvh.HaloCulledRenderer(scene, w, h, mesh=mesh,
-                                        interpret=True)
+        r = halo_bvh.HaloCulledRenderer(scene, w, h, mesh=mesh)
         rows, _ = r.device_fn(scene.camera.to_arrays())
         full = multihost.gather_frame(rows)
         frame = r._assemble(full) if full is not None else None
     elif mode == "ring":
-        from distributed_raytracer_tpu.parallel import ring_bvh
+        from distributed_raytracer.parallel import ring_bvh
 
         mesh = multihost.global_mesh(ring_bvh.AXIS)
-        r = ring_bvh.RingCulledRenderer(scene, w, h, mesh=mesh,
-                                        interpret=True)
+        r = ring_bvh.RingCulledRenderer(scene, w, h, mesh=mesh)
         rows, _ = r.device_fn(scene.camera.to_arrays())
         full = multihost.gather_frame(rows)
         frame = r._assemble(full) if full is not None else None

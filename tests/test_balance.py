@@ -15,8 +15,8 @@ import jax
 import numpy as np
 import pytest
 
-from distributed_raytracer_tpu.models import scene as scene_mod
-from distributed_raytracer_tpu.parallel import tile as tile_mod
+from distributed_raytracer.models import scene as scene_mod
+from distributed_raytracer.parallel import tile as tile_mod
 
 
 def test_balanced_rows_dp():
@@ -58,21 +58,19 @@ def skewed_scene(tmp_path_factory):
 def test_balanced_beats_equal_on_skew(skewed_scene):
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    from distributed_raytracer_tpu.ops.render import render_frame
-    from distributed_raytracer_tpu.parallel import render_sharded_bvh
-
-    interpret = jax.default_backend() != "tpu"
+    from distributed_raytracer.ops.render import render_frame
+    from distributed_raytracer.parallel import render_sharded_bvh
     w, h, n = 64, 256, 4
     mesh = jax.make_mesh((n,), (render_sharded_bvh.AXIS,),
                          devices=jax.devices()[:n])
 
     equal = render_sharded_bvh.make_sharded_culled_renderer(
-        skewed_scene, w, h, mesh=mesh, interpret=interpret)
+        skewed_scene, w, h, mesh=mesh)
     img_eq = equal(skewed_scene.camera)
     eq_max = int(equal.last_counts[:, 1].max())      # fine cells, worst band
 
     bal = render_sharded_bvh.make_sharded_culled_renderer(
-        skewed_scene, w, h, mesh=mesh, interpret=interpret, balance=True)
+        skewed_scene, w, h, mesh=mesh, balance=True)
     img_bal = bal(skewed_scene.camera)
     bal_max = int(bal.last_counts[:, 1].max())
 
@@ -97,15 +95,13 @@ def test_balanced_rebalance_and_verify(skewed_scene):
     overflow after the move."""
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 virtual devices")
-    from distributed_raytracer_tpu.ops.render import render_frame
-    from distributed_raytracer_tpu.parallel import render_sharded_bvh
-
-    interpret = jax.default_backend() != "tpu"
+    from distributed_raytracer.ops.render import render_frame
+    from distributed_raytracer.parallel import render_sharded_bvh
     w, h, n = 64, 256, 4
     mesh = jax.make_mesh((n,), (render_sharded_bvh.AXIS,),
                          devices=jax.devices()[:n])
     bal = render_sharded_bvh.make_sharded_culled_renderer(
-        skewed_scene, w, h, mesh=mesh, interpret=interpret, balance=True,
+        skewed_scene, w, h, mesh=mesh, balance=True,
         margin=1.0)
     moved = skewed_scene.camera.move(1.2, forward=True)
     bal.rebalance(moved)

@@ -3,8 +3,8 @@
 import pytest
 import numpy as np
 
-from distributed_raytracer_tpu.ops.render import render_frame, render_frame_bounced
-from distributed_raytracer_tpu.utils import oracle
+from distributed_raytracer.ops.render import render_frame, render_frame_bounced
+from distributed_raytracer.utils import oracle
 
 
 def test_depth_zero_equals_primary(tetra_scene):
@@ -51,10 +51,9 @@ def test_bounced_matches_oracle_suzanne(suzanne_scene):
 
 def test_culled_bounced_matches_dense(suzanne_scene):
     import jax
-    from distributed_raytracer_tpu.ops.render_bvh import CulledRenderer
-    interpret = jax.default_backend() != "tpu"
+    from distributed_raytracer.ops.render_bvh import CulledRenderer
     w, h = 48, 36
-    r = CulledRenderer(suzanne_scene, w, h, interpret=interpret)
+    r = CulledRenderer(suzanne_scene, w, h)
     dense = np.asarray(render_frame_bounced(r.arrays_host,
                                             suzanne_scene.camera.to_arrays(),
                                             w, h, depth=2))
@@ -66,9 +65,8 @@ def test_culled_bounced_matches_dense(suzanne_scene):
 
 def test_culled_bounced_depth0_equals_render(tetra_scene):
     import jax
-    from distributed_raytracer_tpu.ops.render_bvh import CulledRenderer
-    interpret = jax.default_backend() != "tpu"
-    r = CulledRenderer(tetra_scene, 48, 36, interpret=interpret)
+    from distributed_raytracer.ops.render_bvh import CulledRenderer
+    r = CulledRenderer(tetra_scene, 48, 36)
     base = np.asarray(r.render(tetra_scene.camera))
     d0 = np.asarray(r.render_bounced(tetra_scene.camera, depth=0))
     np.testing.assert_allclose(d0, base, atol=2e-5)
@@ -77,9 +75,8 @@ def test_culled_bounced_depth0_equals_render(tetra_scene):
 @pytest.mark.slow
 def test_culled_bounced_frozen_matches_sync(tetra_scene):
     import jax
-    from distributed_raytracer_tpu.ops.render_bvh import CulledRenderer
-    interpret = jax.default_backend() != "tpu"
-    r = CulledRenderer(tetra_scene, 48, 36, interpret=interpret)
+    from distributed_raytracer.ops.render_bvh import CulledRenderer
+    r = CulledRenderer(tetra_scene, 48, 36)
     sync = np.asarray(r.render_bounced(tetra_scene.camera, depth=2))
     fast = r.freeze_bounced(tetra_scene.camera, depth=2)
     out = np.asarray(fast(tetra_scene.camera))

@@ -5,7 +5,7 @@ import math
 import numpy as np
 import pytest
 
-from distributed_raytracer_tpu.models.camera import Camera, GLOBAL_UP
+from distributed_raytracer.models.camera import Camera, GLOBAL_UP
 
 
 def test_create_frame():

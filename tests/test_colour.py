@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from distributed_raytracer_tpu.ops import colour
+from distributed_raytracer.ops import colour
 
 
 def test_sat_add_clamps_at_one():

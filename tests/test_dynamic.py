@@ -12,9 +12,9 @@ import jax
 import numpy as np
 import pytest
 
-from distributed_raytracer_tpu.models import scene as scene_mod
-from distributed_raytracer_tpu.ops.render import render_frame
-from distributed_raytracer_tpu.ops.render_dynamic import DynamicCulledRenderer
+from distributed_raytracer.models import scene as scene_mod
+from distributed_raytracer.ops.render import render_frame
+from distributed_raytracer.ops.render_dynamic import DynamicCulledRenderer
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +37,7 @@ def two_tetra(tmp_path_factory):
 
 def test_diff_moves_objects_and_lights(two_tetra):
     w, h = 96, 64
-    r = DynamicCulledRenderer(two_tetra, w, h, interpret=True)
+    r = DynamicCulledRenderer(two_tetra, w, h)
     r.freeze(two_tetra.camera, margin=3.0)
 
     for k in range(3):
@@ -62,7 +62,7 @@ def test_diff_moves_objects_and_lights(two_tetra):
 def test_zero_diff_matches_static(two_tetra):
     """An identity diff must reproduce the static fused render exactly."""
     w, h = 64, 48
-    r = DynamicCulledRenderer(two_tetra, w, h, interpret=True)
+    r = DynamicCulledRenderer(two_tetra, w, h)
     r.freeze(two_tetra.camera)
     static = np.asarray(r.render_fast(two_tetra.camera))
     dyn = np.asarray(r.render_dynamic(two_tetra.camera,
@@ -73,11 +73,11 @@ def test_zero_diff_matches_static(two_tetra):
 def test_grouped_bake_matches_plain(two_tetra):
     """The per-object-grouped bake renders identically to the global bake
     (same triangles, different block layout — images must agree)."""
-    from distributed_raytracer_tpu.ops.render_bvh import CulledRenderer
+    from distributed_raytracer.ops.render_bvh import CulledRenderer
 
     w, h = 64, 48
-    a = CulledRenderer(two_tetra, w, h, interpret=True)
-    b = DynamicCulledRenderer(two_tetra, w, h, interpret=True)
+    a = CulledRenderer(two_tetra, w, h)
+    b = DynamicCulledRenderer(two_tetra, w, h)
     ia = np.asarray(a.render(two_tetra.camera, block=True))
     ib = np.asarray(b.render(two_tetra.camera, block=True))
     diff = np.abs(ia - ib).max(-1)

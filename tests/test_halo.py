@@ -9,9 +9,9 @@ import jax
 import numpy as np
 import pytest
 
-from distributed_raytracer_tpu.models import bvh
-from distributed_raytracer_tpu.ops.render import render_frame
-from distributed_raytracer_tpu.parallel import halo, ring
+from distributed_raytracer.models import bvh
+from distributed_raytracer.ops.render import render_frame
+from distributed_raytracer.parallel import halo, ring
 
 
 @pytest.fixture(scope="module")

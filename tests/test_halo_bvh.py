@@ -12,10 +12,10 @@ import jax
 import numpy as np
 import pytest
 
-from distributed_raytracer_tpu.ops.render import render_frame
-from distributed_raytracer_tpu.ops.render_bvh import CulledRenderer
-from distributed_raytracer_tpu.parallel import halo_bvh
-from distributed_raytracer_tpu.utils import scenes as S
+from distributed_raytracer.ops.render import render_frame
+from distributed_raytracer.ops.render_bvh import CulledRenderer
+from distributed_raytracer.parallel import halo_bvh
+from distributed_raytracer.utils import scenes as S
 
 
 @pytest.fixture(scope="module")
@@ -30,8 +30,7 @@ def test_halo_bvh_matches_dense_tetra(tetra_scene, mesh8):
     dense = np.asarray(render_frame(
         jax.device_put(tetra_scene.bake()), tetra_scene.camera.to_arrays(),
         w, h))
-    r = halo_bvh.HaloCulledRenderer(tetra_scene, w, h, mesh=mesh8,
-                                    interpret=True)
+    r = halo_bvh.HaloCulledRenderer(tetra_scene, w, h, mesh=mesh8)
     out = r.render(tetra_scene.camera)
     np.testing.assert_allclose(out, dense, atol=2e-5)
 
@@ -41,8 +40,7 @@ def test_halo_bvh_matches_dense_suzanne(suzanne_scene, mesh8):
     dense = np.asarray(render_frame(
         jax.device_put(suzanne_scene.bake()),
         suzanne_scene.camera.to_arrays(), w, h))
-    r = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8,
-                                    interpret=True)
+    r = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8)
     out = r.render(suzanne_scene.camera)
     diff = np.abs(out - dense).max(-1)
     assert (diff > 2 / 255).mean() < 0.005
@@ -55,9 +53,9 @@ def test_halo_bvh_matches_culled_instanced(suzanne_scene, mesh8):
     small fraction of the dense sharded schedule's rays x T."""
     big = S.instanced_grid(suzanne_scene, 4)
     w, h = 192, 128
-    single = CulledRenderer(big, w, h, interpret=True)
+    single = CulledRenderer(big, w, h)
     ref = np.asarray(single.render(big.camera, block=True))
-    r = halo_bvh.HaloCulledRenderer(big, w, h, mesh=mesh8, interpret=True)
+    r = halo_bvh.HaloCulledRenderer(big, w, h, mesh=mesh8)
     out = r.render(big.camera, verify=True)
     diff = np.abs(out - ref).max(-1)
     assert (diff > 2 / 255).mean() < 0.005
@@ -75,7 +73,7 @@ def test_halo_bvh_overflow_refreeze(tetra_scene, mesh8):
     wrong pixels) under verify=True."""
     w, h = 64, 48
     r = halo_bvh.HaloCulledRenderer(tetra_scene, w, h, mesh=mesh8,
-                                    margin=1.0, interpret=True)
+                                    margin=1.0)
     # Move close to the geometry: retention rises, buckets overflow.
     close = tetra_scene.camera.move(2.4, forward=True)
     out = r.render(close, verify=True)
@@ -96,8 +94,7 @@ def test_halo_bvh_dynamic_diff(two_tetra_scene, mesh8):
 
     scene = two_tetra_scene
     w, h = 96, 64
-    r = halo_bvh.HaloCulledRenderer(scene, w, h, mesh=mesh8,
-                                    interpret=True, dynamic=True,
+    r = halo_bvh.HaloCulledRenderer(scene, w, h, mesh=mesh8, dynamic=True,
                                     margin=4.0)
     for k in range(2):
         moved = copy.deepcopy(scene)
@@ -119,11 +116,10 @@ def test_halo_bounces_exact_tetra(tetra_scene, mesh8):
     "secondary-ray halo exchange" hard mode at depth 1, exact on the
     4-tri scene."""
     w, h = 64, 48
-    single = CulledRenderer(tetra_scene, w, h, interpret=True)
+    single = CulledRenderer(tetra_scene, w, h)
     ref = np.asarray(single.render_bounced(tetra_scene.camera, depth=1,
                                            block=True))
-    r = halo_bvh.HaloCulledRenderer(tetra_scene, w, h, mesh=mesh8,
-                                    interpret=True, bounces=1)
+    r = halo_bvh.HaloCulledRenderer(tetra_scene, w, h, mesh=mesh8, bounces=1)
     out = r.render(tetra_scene.camera, verify=True)
     assert r.last_counts.shape == (8, 2, 2)       # (n, B+1, 2)
     np.testing.assert_allclose(out, ref, atol=2e-5)
@@ -134,11 +130,10 @@ def test_halo_bounces_match_replicated_suzanne(suzanne_scene, mesh8):
     """depth-2 halo bounces vs the replicated render_bounced on the real
     asset: bit-close outside the usual BARY_EPS tie pixels."""
     w, h = 64, 48
-    single = CulledRenderer(suzanne_scene, w, h, interpret=True)
+    single = CulledRenderer(suzanne_scene, w, h)
     ref = np.asarray(single.render_bounced(suzanne_scene.camera, depth=2,
                                            block=True))
-    r = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8,
-                                    interpret=True, bounces=2)
+    r = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8, bounces=2)
     out = r.render(suzanne_scene.camera)
     diff = np.abs(out - ref).max(-1)
     assert (diff > 2 / 255).mean() < 0.005
@@ -152,23 +147,19 @@ def test_halo_local_hierarchy_matches_flat(suzanne_scene, mesh8):
     cull — the local unions are the same conservative interval math, and
     the shard padding keeps groups from straddling shards."""
     w, h = 64, 48
-    flat = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8,
-                                       interpret=True, local_levels=1)
+    flat = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8, local_levels=1)
     want = flat.render(suzanne_scene.camera, verify=True)
-    hier = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8,
-                                       interpret=True, local_levels=2,
+    hier = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8, local_levels=2,
                                        local_group=2)
     assert hier.loc_groups == (2,)
     got = hier.render(suzanne_scene.camera, verify=True)
     assert hier.last_counts.shape == (8, 4)     # per-level: (p0,p1,s0,s1)
     np.testing.assert_array_equal(got, want)
     # Bounces through the hierarchy too.
-    fb = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8,
-                                     interpret=True, bounces=1,
+    fb = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8, bounces=1,
                                      local_levels=2, local_group=2)
     got_b = fb.render(suzanne_scene.camera, verify=True)
-    ref_b = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8,
-                                        interpret=True, bounces=1,
+    ref_b = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh8, bounces=1,
                                         local_levels=1)
     want_b = ref_b.render(suzanne_scene.camera, verify=True)
     np.testing.assert_array_equal(got_b, want_b)
@@ -183,14 +174,13 @@ def test_halo_bvh_dynamic_bounced(two_tetra_scene):
 
     import jax
 
-    from distributed_raytracer_tpu.ops.render import render_frame_bounced
-    from distributed_raytracer_tpu.parallel import halo_bvh
+    from distributed_raytracer.ops.render import render_frame_bounced
+    from distributed_raytracer.parallel import halo_bvh
 
     scene = two_tetra_scene
     w, h = 96, 64
     mesh = jax.make_mesh((8,), (halo_bvh.AXIS,))
-    r = halo_bvh.HaloCulledRenderer(scene, w, h, mesh=mesh,
-                                    interpret=True, dynamic=True,
+    r = halo_bvh.HaloCulledRenderer(scene, w, h, mesh=mesh, dynamic=True,
                                     bounces=1, margin=4.0)
     moved = copy.deepcopy(scene)
     moved.set_object_pos(2, [-0.9, 0.4, -1.2])

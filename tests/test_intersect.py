@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from distributed_raytracer_tpu.models.camera import Camera
-from distributed_raytracer_tpu.models.objparse import Material, MeshData
-from distributed_raytracer_tpu.models.scene import Scene, SceneObject
-from distributed_raytracer_tpu.ops import intersect
+from distributed_raytracer.models.camera import Camera
+from distributed_raytracer.models.objparse import Material, MeshData
+from distributed_raytracer.models.scene import Scene, SceneObject
+from distributed_raytracer.ops import intersect
 
 
 def scene_from_tris(tris, lights_pos=None, lights_col=None):

@@ -62,8 +62,8 @@ def test_two_process_render_matches_single(scene_path, tmp_path):
 
     # Single-process reference with the same tetra scene.
     import jax
-    from distributed_raytracer_tpu.models.scene import load_scene
-    from distributed_raytracer_tpu.ops.render import render_frame
+    from distributed_raytracer.models.scene import load_scene
+    from distributed_raytracer.ops.render import render_frame
 
     scene = load_scene(scene_path)
     want = np.asarray(render_frame(jax.device_put(scene.bake()),
@@ -83,7 +83,7 @@ def test_cli_multihost(scene_path, tmp_path):
     def code(pid):
         return (
             "import jax; jax.config.update('jax_platforms','cpu');"
-            "from distributed_raytracer_tpu.run import main; import sys;"
+            "from distributed_raytracer.run import main; import sys;"
             f"sys.exit(main([{scene_path!r}, '40', '30', '--mode', 'sharded',"
             f" '--frames', '2', '--fps-target', '0', '--animation', 'none',"
             f" '--out', {out!r}, '--multihost',"
@@ -127,8 +127,8 @@ def _run_workers(scene_path, tmp_path, mode: str, nproc: int) -> np.ndarray:
 
 def _single_process_reference(scene_path):
     import jax
-    from distributed_raytracer_tpu.models.scene import load_scene
-    from distributed_raytracer_tpu.ops.render import render_frame
+    from distributed_raytracer.models.scene import load_scene
+    from distributed_raytracer.ops.render import render_frame
 
     scene = load_scene(scene_path)
     return np.asarray(render_frame(jax.device_put(scene.bake()),
@@ -164,8 +164,8 @@ def test_bounced_bands_cross_process(scene_path, tmp_path):
     both cross the boundary)."""
     import jax
 
-    from distributed_raytracer_tpu.models.scene import load_scene
-    from distributed_raytracer_tpu.ops.render import render_frame_bounced
+    from distributed_raytracer.models.scene import load_scene
+    from distributed_raytracer.ops.render import render_frame_bounced
 
     got = _run_workers(scene_path, tmp_path, "sharded-bvh-bounced", 2)
     scene = load_scene(scene_path)

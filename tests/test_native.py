@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from distributed_raytracer_tpu.models import bvh, native
-from distributed_raytracer_tpu.models.objparse import parse_obj
+from distributed_raytracer.models import bvh, native
+from distributed_raytracer.models.objparse import parse_obj
 
 SUZANNE = "/root/reference/example/suzanne.obj"
 
@@ -70,8 +70,8 @@ def test_native_bake_matches_numpy(suzanne_scene):
     per-object-grouped (dynamic) bakes."""
     import numpy as np
 
-    from distributed_raytracer_tpu.models import native
-    from distributed_raytracer_tpu.utils import scenes as S
+    from distributed_raytracer.models import native
+    from distributed_raytracer.utils import scenes as S
 
     if not native.available():
         pytest.skip("native library unavailable")

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from distributed_raytracer_tpu.models.objparse import Material, parse_mtl, parse_obj
+from distributed_raytracer.models.objparse import Material, parse_mtl, parse_obj
 
 SUZANNE = "/root/reference/example/suzanne.obj"
 

@@ -3,8 +3,8 @@
 The in-suite variant of tools/loop_recovery_smoke.py: the loop's recover
 hook must heal from an actual SIGKILLed child process (worker death), not
 just an injected exception — worker/distributed/main.go:160-185's
-re-registration semantics. The on-hardware variant (killing a real TPU
-client) is the tool's __main__."""
+re-registration semantics. The on-hardware variant (killing a real
+accelerator client) is the tool's __main__."""
 
 from tools.loop_recovery_smoke import run_smoke
 

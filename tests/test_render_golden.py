@@ -1,4 +1,4 @@
-"""Golden-image tests: the jitted TPU-path renderer vs the float64 oracle.
+"""Golden-image tests: the jitted device-path renderer vs the float64 oracle.
 
 The oracle (utils/oracle.py) is the executable spec of the reference's
 sequential renderer. float32 and float64 can legitimately disagree at
@@ -12,8 +12,8 @@ therefore build a discontinuity mask from the oracle's per-pixel decisions
 
 import numpy as np
 
-from distributed_raytracer_tpu.ops.render import render_frame
-from distributed_raytracer_tpu.utils import oracle
+from distributed_raytracer.ops.render import render_frame
+from distributed_raytracer.utils import oracle
 
 
 def discontinuity_mask(aux) -> np.ndarray:

@@ -4,8 +4,8 @@ import jax
 import numpy as np
 import pytest
 
-from distributed_raytracer_tpu.ops.render import render_frame
-from distributed_raytracer_tpu.parallel import ring
+from distributed_raytracer.ops.render import render_frame
+from distributed_raytracer.parallel import ring
 
 
 @pytest.fixture(scope="module")

@@ -10,9 +10,9 @@ import jax
 import numpy as np
 import pytest
 
-from distributed_raytracer_tpu.ops.render import render_frame
-from distributed_raytracer_tpu.parallel import halo_bvh, ring_bvh
-from distributed_raytracer_tpu.utils import scenes as S
+from distributed_raytracer.ops.render import render_frame
+from distributed_raytracer.parallel import halo_bvh, ring_bvh
+from distributed_raytracer.utils import scenes as S
 
 
 @pytest.fixture(scope="module")
@@ -27,8 +27,7 @@ def test_ring_bvh_matches_dense_tetra(tetra_scene, mesh8):
     dense = np.asarray(render_frame(
         jax.device_put(tetra_scene.bake()), tetra_scene.camera.to_arrays(),
         w, h))
-    r = ring_bvh.RingCulledRenderer(tetra_scene, w, h, mesh=mesh8,
-                                    interpret=True)
+    r = ring_bvh.RingCulledRenderer(tetra_scene, w, h, mesh=mesh8)
     out = r.render(tetra_scene.camera)
     np.testing.assert_allclose(out, dense, atol=2e-5)
 
@@ -38,8 +37,7 @@ def test_ring_bvh_matches_dense_suzanne(suzanne_scene, mesh8):
     dense = np.asarray(render_frame(
         jax.device_put(suzanne_scene.bake()),
         suzanne_scene.camera.to_arrays(), w, h))
-    r = ring_bvh.RingCulledRenderer(suzanne_scene, w, h, mesh=mesh8,
-                                    interpret=True)
+    r = ring_bvh.RingCulledRenderer(suzanne_scene, w, h, mesh=mesh8)
     out = r.render(suzanne_scene.camera)
     diff = np.abs(out - dense).max(-1)
     assert (diff > 2 / 255).mean() < 0.005
@@ -51,8 +49,8 @@ def test_ring_bvh_equals_halo_bvh(suzanne_scene, mesh8):
     big = S.instanced_grid(suzanne_scene, 3)
     w, h = 96, 64
     mesh_h = jax.make_mesh((8,), (halo_bvh.AXIS,))
-    hr = halo_bvh.HaloCulledRenderer(big, w, h, mesh=mesh_h, interpret=True)
-    rr = ring_bvh.RingCulledRenderer(big, w, h, mesh=mesh8, interpret=True)
+    hr = halo_bvh.HaloCulledRenderer(big, w, h, mesh=mesh_h)
+    rr = ring_bvh.RingCulledRenderer(big, w, h, mesh=mesh8)
     a = hr.render(big.camera, verify=True)
     b = rr.render(big.camera, verify=True)
     np.testing.assert_array_equal(a, b)
@@ -63,13 +61,12 @@ def test_ring_bvh_dynamic_diff(two_tetra_scene, mesh8):
     shard BEFORE rotation, so every step streams updated geometry."""
     import copy
 
-    from distributed_raytracer_tpu.models.scene import SceneDiff
-    from distributed_raytracer_tpu.ops.render import render_frame
+    from distributed_raytracer.models.scene import SceneDiff
+    from distributed_raytracer.ops.render import render_frame
 
     scene = two_tetra_scene
     w, h = 96, 64
-    r = ring_bvh.RingCulledRenderer(scene, w, h, mesh=mesh8,
-                                    interpret=True, dynamic=True,
+    r = ring_bvh.RingCulledRenderer(scene, w, h, mesh=mesh8, dynamic=True,
                                     margin=4.0)
     moved = copy.deepcopy(scene)
     moved.set_object_pos(2, [-0.9, 0.4, -1.2])
@@ -89,15 +86,13 @@ def test_ring_bvh_bounces_equal_halo_and_dense(suzanne_scene, mesh8):
     geometry rotation with per-ray origins. Must be bit-equal to the halo
     schedule's bounce (two transports, one image) and match the replicated
     dense multi-bounce path."""
-    from distributed_raytracer_tpu.ops.render import render_frame_bounced
+    from distributed_raytracer.ops.render import render_frame_bounced
 
     w, h = 64, 48
     mesh_h = jax.make_mesh((8,), (halo_bvh.AXIS,))
-    rb = ring_bvh.RingCulledRenderer(suzanne_scene, w, h, mesh=mesh8,
-                                     interpret=True, bounces=1)
+    rb = ring_bvh.RingCulledRenderer(suzanne_scene, w, h, mesh=mesh8, bounces=1)
     img_r = rb.render(suzanne_scene.camera, verify=True)
-    hb = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh_h,
-                                     interpret=True, bounces=1)
+    hb = halo_bvh.HaloCulledRenderer(suzanne_scene, w, h, mesh=mesh_h, bounces=1)
     img_h = hb.render(suzanne_scene.camera, verify=True)
     np.testing.assert_array_equal(img_r, img_h)
     dense = np.asarray(render_frame_bounced(
@@ -115,12 +110,11 @@ def test_ring_bvh_dynamic_bounced(two_tetra_scene, mesh8):
     frame's EnvMutables — tracer.go:81, master/main.go:260-266)."""
     import copy
 
-    from distributed_raytracer_tpu.ops.render import render_frame_bounced
+    from distributed_raytracer.ops.render import render_frame_bounced
 
     scene = two_tetra_scene
     w, h = 96, 64
-    r = ring_bvh.RingCulledRenderer(scene, w, h, mesh=mesh8,
-                                    interpret=True, dynamic=True,
+    r = ring_bvh.RingCulledRenderer(scene, w, h, mesh=mesh8, dynamic=True,
                                     bounces=1, margin=4.0)
     moved = copy.deepcopy(scene)
     moved.set_object_pos(2, [-0.9, 0.4, -1.2])
@@ -143,12 +137,10 @@ def test_ring_bvh_square_tiles_halve_pairs(suzanne_scene, mesh8):
     through its R-trees (mesh.go:139)."""
     big = S.instanced_grid(suzanne_scene, 4)
     w, h = 160, 120
-    r_def = ring_bvh.RingCulledRenderer(big, w, h, mesh=mesh8,
-                                        interpret=True)
+    r_def = ring_bvh.RingCulledRenderer(big, w, h, mesh=mesh8)
     a = r_def.render(big.camera, verify=True)
     p_def = r_def.scheduled_pairs()
-    r_sq = ring_bvh.RingCulledRenderer(big, w, h, mesh=mesh8,
-                                       interpret=True, ray_tile=256,
+    r_sq = ring_bvh.RingCulledRenderer(big, w, h, mesh=mesh8, ray_tile=256,
                                        tile_w=16)
     b = r_sq.render(big.camera, verify=True)
     p_sq = r_sq.scheduled_pairs()
@@ -161,10 +153,8 @@ def test_ring_bvh_multilevel_local_cull(suzanne_scene, mesh8):
     the per-step multilevel walk must reproduce the flat walk's image
     bit-exactly (the descent only skips provably-empty member groups)."""
     w, h = 64, 48
-    flat = ring_bvh.RingCulledRenderer(suzanne_scene, w, h, mesh=mesh8,
-                                       interpret=True, local_levels=1)
-    hier = ring_bvh.RingCulledRenderer(suzanne_scene, w, h, mesh=mesh8,
-                                       interpret=True, local_levels=2,
+    flat = ring_bvh.RingCulledRenderer(suzanne_scene, w, h, mesh=mesh8, local_levels=1)
+    hier = ring_bvh.RingCulledRenderer(suzanne_scene, w, h, mesh=mesh8, local_levels=2,
                                        local_group=4)
     a = flat.render(suzanne_scene.camera, verify=True)
     b = hier.render(suzanne_scene.camera, verify=True)

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from distributed_raytracer_tpu.models.camera import Camera
-from distributed_raytracer_tpu.runtime import animation, framebuffer
-from distributed_raytracer_tpu.runtime.controller import CameraController
-from distributed_raytracer_tpu.runtime.loop import run_loop
-from distributed_raytracer_tpu.runtime.stats import FrameTimer
+from distributed_raytracer.models.camera import Camera
+from distributed_raytracer.runtime import animation, framebuffer
+from distributed_raytracer.runtime.controller import CameraController
+from distributed_raytracer.runtime.loop import run_loop
+from distributed_raytracer.runtime.stats import FrameTimer
 
 
 # ---- stats (master/main.go:285-325) ---------------------------------------
@@ -254,7 +254,7 @@ def test_loop_aborts_on_permanent_failure(tetra_scene):
     """A permanently failing device must end the loop, not spin forever."""
     import dataclasses
 
-    from distributed_raytracer_tpu.utils.config import DEFAULT_CONFIG
+    from distributed_raytracer.utils.config import DEFAULT_CONFIG
 
     arrays = tetra_scene.bake()
 
@@ -277,7 +277,7 @@ def test_loop_recovers_after_drop_run(tetra_scene):
     level). Stats record the successful recovery."""
     import dataclasses
 
-    from distributed_raytracer_tpu.utils.config import DEFAULT_CONFIG
+    from distributed_raytracer.utils.config import DEFAULT_CONFIG
 
     arrays = tetra_scene.bake()
 
@@ -308,7 +308,7 @@ def test_loop_aborts_when_recovery_fails(tetra_scene):
     """Recovery that cannot heal (hook raises) must not loop forever."""
     import dataclasses
 
-    from distributed_raytracer_tpu.utils.config import DEFAULT_CONFIG
+    from distributed_raytracer.utils.config import DEFAULT_CONFIG
 
     arrays = tetra_scene.bake()
 
@@ -331,7 +331,7 @@ def test_loop_exhausts_recovery_budget(tetra_scene):
     and then aborts."""
     import dataclasses
 
-    from distributed_raytracer_tpu.utils.config import DEFAULT_CONFIG
+    from distributed_raytracer.utils.config import DEFAULT_CONFIG
 
     arrays = tetra_scene.bake()
 

@@ -9,8 +9,8 @@ import jax
 import numpy as np
 import pytest
 
-from distributed_raytracer_tpu.ops.render import render_frame
-from distributed_raytracer_tpu.parallel import render_sharded
+from distributed_raytracer.ops.render import render_frame
+from distributed_raytracer.parallel import render_sharded
 
 
 @pytest.fixture(scope="module")
@@ -65,18 +65,16 @@ def test_sharded_culled_matches_single(suzanne_scene):
     """Multi-chip block-sparse path == single-chip block-sparse path."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from distributed_raytracer_tpu.ops.render_bvh import CulledRenderer
-    from distributed_raytracer_tpu.parallel import render_sharded_bvh
-
-    interpret = jax.default_backend() != "tpu"
+    from distributed_raytracer.ops.render_bvh import CulledRenderer
+    from distributed_raytracer.parallel import render_sharded_bvh
     w, h = 64, 48
     mesh = jax.make_mesh((8,), (render_sharded_bvh.AXIS,))
     render = render_sharded_bvh.make_sharded_culled_renderer(
-        suzanne_scene, w, h, mesh=mesh, interpret=interpret)
+        suzanne_scene, w, h, mesh=mesh)
     multi = render(suzanne_scene.camera)
     assert multi.shape == (h, w, 3)
 
-    single = CulledRenderer(suzanne_scene, w, h, interpret=interpret)
+    single = CulledRenderer(suzanne_scene, w, h)
     ref = np.asarray(single.render(suzanne_scene.camera))
     diff = np.abs(multi - ref).max(-1)
     assert (diff > 2 / 255).mean() < 0.005
@@ -86,15 +84,13 @@ def test_sharded_culled_matches_single(suzanne_scene):
 def test_sharded_culled_odd_height(tetra_scene):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from distributed_raytracer_tpu.parallel import render_sharded_bvh
-
-    interpret = jax.default_backend() != "tpu"
+    from distributed_raytracer.parallel import render_sharded_bvh
     mesh = jax.make_mesh((8,), (render_sharded_bvh.AXIS,))
     render = render_sharded_bvh.make_sharded_culled_renderer(
-        tetra_scene, 40, 30, mesh=mesh, interpret=interpret)  # 30 % 8 != 0
+        tetra_scene, 40, 30, mesh=mesh)  # 30 % 8 != 0
     out = render(tetra_scene.camera)
     assert out.shape == (30, 40, 3)
-    from distributed_raytracer_tpu.ops.render import render_frame
+    from distributed_raytracer.ops.render import render_frame
     dense = np.asarray(render_frame(render.band.arrays_host,
                                     tetra_scene.camera.to_arrays(), 40, 30))
     np.testing.assert_allclose(out, dense, atol=2e-5)
@@ -107,12 +103,10 @@ def test_sharded_culled_overflow_refreeze(tetra_scene):
     (master/main.go:153-161)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from distributed_raytracer_tpu.parallel import render_sharded_bvh
-
-    interpret = jax.default_backend() != "tpu"
+    from distributed_raytracer.parallel import render_sharded_bvh
     mesh = jax.make_mesh((8,), (render_sharded_bvh.AXIS,))
     render = render_sharded_bvh.make_sharded_culled_renderer(
-        tetra_scene, 40, 32, mesh=mesh, margin=1.0, interpret=interpret)
+        tetra_scene, 40, 32, mesh=mesh, margin=1.0)
     before = render.buckets()
     close = tetra_scene.camera.move(2.4, forward=True)
     out = render(close, verify=True)
@@ -121,7 +115,7 @@ def test_sharded_culled_overflow_refreeze(tetra_scene):
     got = render.last_counts
     pads = render.buckets()                     # (w1, w, w1_sh, w_sh)
     assert all(int(got[:, k].max()) <= pads[k] for k in range(4))
-    from distributed_raytracer_tpu.ops.render import render_frame
+    from distributed_raytracer.ops.render import render_frame
     dense = np.asarray(render_frame(render.band.arrays_host,
                                     close.to_arrays(), 40, 32))
     np.testing.assert_allclose(out, dense, atol=2e-5)
@@ -132,18 +126,16 @@ def test_sharded_bounced_matches_single(suzanne_scene):
     """Multi-chip multi-bounce == single-chip multi-bounce (depth 1)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from distributed_raytracer_tpu.ops.render_bvh import CulledRenderer
-    from distributed_raytracer_tpu.parallel import render_sharded_bvh
-
-    interpret = jax.default_backend() != "tpu"
+    from distributed_raytracer.ops.render_bvh import CulledRenderer
+    from distributed_raytracer.parallel import render_sharded_bvh
     w, h = 64, 48
     mesh = jax.make_mesh((8,), (render_sharded_bvh.AXIS,))
     render = render_sharded_bvh.make_sharded_bounced_renderer(
-        suzanne_scene, w, h, depth=1, mesh=mesh, interpret=interpret)
+        suzanne_scene, w, h, depth=1, mesh=mesh)
     multi = render(suzanne_scene.camera)
     assert multi.shape == (h, w, 3)
 
-    single = CulledRenderer(suzanne_scene, w, h, interpret=interpret)
+    single = CulledRenderer(suzanne_scene, w, h)
     ref = np.asarray(single.render_bounced(suzanne_scene.camera, depth=1))
     diff = np.abs(multi - ref).max(-1)
     assert (diff > 2 / 255).mean() < 0.005

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from distributed_raytracer_tpu.parallel.tile import Tile, partition_bisect, row_partition
+from distributed_raytracer.parallel.tile import Tile, partition_bisect, row_partition
 
 
 def coverage_map(tiles, width, height):
@@ -58,7 +58,7 @@ def test_oracle_renders_in_bisect_tiles(tetra_scene):
     """The oracle driven by the master's WorkOrder rectangles: full-frame
     tile-by-tile render == plain oracle render (every pixel covered exactly
     once), and a single tile renders only (and exactly) its region."""
-    from distributed_raytracer_tpu.utils import oracle
+    from distributed_raytracer.utils import oracle
 
     w, h = 48, 36
     full = oracle.render_oracle(tetra_scene, w, h)

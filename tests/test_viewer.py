@@ -5,7 +5,7 @@ import urllib.request
 
 import numpy as np
 
-from distributed_raytracer_tpu.runtime import viewer as viewer_mod
+from distributed_raytracer.runtime import viewer as viewer_mod
 
 
 def _get(url):
@@ -55,7 +55,7 @@ def test_viewer_http_surface():
 
 def test_viewer_drives_run_loop(tetra_scene):
     """Browser events -> controller -> frames -> viewer, ending on Esc."""
-    from distributed_raytracer_tpu.runtime.loop import run_loop
+    from distributed_raytracer.runtime.loop import run_loop
 
     v = viewer_mod.ViewerServer(port=0)
     calls = []
